@@ -1,4 +1,4 @@
-"""Drive the batched TPU environment farm with standard Gymnasium tooling.
+"""Drive the batched on-device environment farm with standard Gymnasium tooling.
 
 The vec tier's native interface is pure JAX (jit/vmap/scan); this example
 shows the OTHER door: ``vec.GymVectorEnv`` exposes the same farm as a

@@ -1,11 +1,5 @@
 """Gymnasium-compatible single-env tier (reference API parity, float64)."""
 
-from ..utils.compile_cache import enable_persistent_cache
-
-# The compat tier is compile-bound on TPU (~40 s per network topology);
-# persist compiles across processes (no-op if the user configured a dir).
-enable_persistent_cache()
-
 from .anm_env import ANMEnv
 from .ieee33 import IEEE33Env
 

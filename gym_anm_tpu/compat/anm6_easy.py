@@ -16,7 +16,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..networks.anm6 import network
+from ..networks.anm6 import _get_gen_time_series, _get_load_time_series, network
 from .anm_env import ANMEnv
 
 
@@ -212,65 +212,3 @@ class ANM6Easy(ANM6):
         new_date = self.date + self.state[-1] * self.timestep_length
         super().reset_date(new_date)
         return obs, info
-
-
-def _piecewise_day(s1, s12, s2, s23, s3):
-    """Assemble a 96-step daily profile from plateau/ramp segments
-    (the construction pattern of anm6_easy.py:77-132)."""
-    return np.concatenate((s1, s12, s2, s23, s3, s23[::-1], s2, s12[::-1], s1[:4]))
-
-
-def _get_load_time_series():
-    """Fixed 24-hour load profiles (anm6_easy.py:77-107), reproduced
-    digit-for-digit."""
-    # Device 1: residential load.
-    P1 = _piecewise_day(
-        -np.ones(25),
-        np.linspace(-1.5, -4.5, 7),
-        -5 * np.ones(13),
-        np.linspace(-4.625, -2.375, 7),
-        -2 * np.ones(13),
-    )
-    # Device 3: industrial load.
-    P3 = _piecewise_day(
-        -4 * np.ones(25),
-        np.linspace(-4.75, -9.25, 7),
-        -10 * np.ones(13),
-        np.linspace(-11.25, -18.75, 7),
-        -20 * np.ones(13),
-    )
-    # Device 5: EV-charging station load.
-    P5 = _piecewise_day(
-        np.zeros(25),
-        np.linspace(-3.125, -21.875, 7),
-        -25 * np.ones(13),
-        np.linspace(-21.875, -3.125, 7),
-        np.zeros(13),
-    )
-    P_loads = np.vstack((P1, P3, P5))
-    assert P_loads.shape == (3, 96)
-    return P_loads
-
-
-def _get_gen_time_series():
-    """Fixed 24-hour maximum-generation profiles (anm6_easy.py:110-132),
-    including the asymmetric PV ramp into a lower plateau."""
-    # Device 2: residential PV aggregation.
-    P2 = _piecewise_day(
-        np.zeros(25),
-        np.linspace(0.5, 3.5, 7),
-        4 * np.ones(13),
-        np.linspace(7.25, 36.75, 7),
-        30 * np.ones(13),
-    )
-    # Device 4: wind farm.
-    P4 = _piecewise_day(
-        40 * np.ones(25),
-        np.linspace(36.375, 14.625, 7),
-        11 * np.ones(13),
-        np.linspace(14.725, 36.375, 7),
-        40 * np.ones(13),
-    )
-    P_maxs = np.vstack((P2, P4))
-    assert P_maxs.shape == (2, 96)
-    return P_maxs

@@ -15,9 +15,15 @@ from copy import deepcopy
 from logging import getLogger
 from typing import Optional
 
-import gymnasium as gym
 import numpy as np
-from gymnasium import spaces
+
+try:
+    import gymnasium as gym
+    from gymnasium import spaces
+except ImportError as e:
+    raise ImportError(
+        "gym_anm_tpu.compat needs gymnasium (pip install gymnasium); "
+        "the vectorized tier gym_anm_tpu.vec runs without it") from e
 
 from ..env.simulator import Simulator
 from ..errors import (

@@ -1,6 +1,6 @@
 """On-device offline-RL dataset generation at scale.
 
-The TPU-native counterpart of :mod:`gym_anm_tpu.offline`: whole datasets are
+The on-device counterpart of :mod:`gym_anm_tpu.offline`: whole datasets are
 produced by a single ``lax.scan`` over a vmapped environment batch — no host
 round-trips, millions of transitions per minute on one chip.  No reference
 counterpart exists at this scale (the reference collects one transition per

@@ -4,8 +4,8 @@ The env lanes are fully independent (no cross-env coupling exists anywhere
 in the physics), so the farm is embarrassingly parallel: a 1-D mesh over an
 ``env`` axis with every per-lane array sharded on its leading dimension.
 Collectives appear only at the learner boundary (gradient/metric psum,
-inserted by GSPMD from the sharding annotations) — they ride ICI within a
-slice and DCN across slices.
+inserted by GSPMD from the sharding annotations); on GPUs XLA hands them
+to NCCL.
 """
 
 import jax

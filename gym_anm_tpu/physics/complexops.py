@@ -1,8 +1,9 @@
 """Split-complex helpers.
 
 The physics kernels keep complex quantities as (re, im) pairs of real
-arrays instead of complex dtypes: real matmuls map directly onto the TPU
-MXU, complex support on accelerators is spotty, and a single code path can
+arrays instead of complex dtypes: real matmuls map directly onto the
+accelerator's matrix units, complex support on accelerators is spotty, and
+a single code path can
 then run in float32 (throughput mode) or float64 (parity mode).
 """
 
@@ -28,11 +29,12 @@ def cabs(ar, ai):
 def cmatvec(Mre, Mim, vr, vi, precision=None):
     """Complex matrix-vector product with split storage.
 
-    Shapes: M [..., N, N], v [..., N].  Uses real matmuls (MXU-friendly).
+    Shapes: M [..., N, N], v [..., N].  Uses real matmuls.
 
     Pass ``precision=jax.lax.Precision.HIGHEST`` when the result feeds a
-    convergence test: TPU f32 matmuls otherwise multiply in bfloat16, whose
-    ~3-digit mantissa puts a residual floor far above any useful xtol.
+    convergence test: accelerator f32 matmuls otherwise may multiply in
+    TF32 or bfloat16, whose ~3-digit mantissa puts a residual floor far
+    above any useful xtol.
     """
     dot = lambda a, b: jnp.matmul(a, b[..., None], precision=precision)[..., 0]
     re = dot(Mre, vr) - dot(Mim, vi)

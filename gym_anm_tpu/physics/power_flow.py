@@ -1,6 +1,6 @@
 """Batched Newton–Raphson AC load-flow solver.
 
-TPU-native replacement for ``gym_anm/simulator/solve_load_flow.py:7-226``.
+Accelerator-resident replacement for ``gym_anm/simulator/solve_load_flow.py:7-226``.
 The algorithm is the same iterate-for-iterate (this is what makes single-env
 trajectories match the reference):
 
@@ -13,10 +13,10 @@ trajectories match the reference):
 * converged = ¬isnan(diff); stable = converged ∧ diff ≤ xtol.
 
 Differences from the reference are purely representational: dense
-split-complex arithmetic instead of scipy sparse (dense wins at ≤33 buses on
-TPU, and real matmuls hit the MXU), a `lax.while_loop` instead of a Python
-loop (so the whole solve jits/vmaps), and a batched `jnp.linalg.solve` in
-place of SuperLU's `spsolve`.  Under `vmap`, JAX's while-loop batching
+split-complex arithmetic instead of scipy sparse (at ≤33 buses the dense
+real matmuls batch across lanes), a `lax.while_loop` instead of a Python
+loop (so the whole solve jits/vmaps), and a batched dense solve in place of
+SuperLU's `spsolve`.  Under `vmap`, JAX's while-loop batching
 applies per-lane masked updates, so each environment lane stops exactly when
 the reference would.
 """
@@ -66,7 +66,8 @@ def _mismatch(x, p, q, Yre, Yim, n):
     """F(x) = [Re(S−s); Im(S−s)] with S = V ∘ conj(YV), rows 1..N−1.
 
     The matvec runs at HIGHEST precision: F is the convergence criterion,
-    and TPU's default bf16-input matmul would floor ‖F‖∞ near 1e-1.
+    and a reduced-precision default (TF32 or bf16 inputs) would floor ‖F‖∞
+    far above the 1e-5 tolerance.
     """
     theta, vm = x[:n], x[n:]
     v_re, v_im = _assemble_v(theta, vm, x.dtype)
@@ -118,84 +119,10 @@ def _jacobian(v_re, v_im, yv_re, yv_im, Yre, Yim, n):
     return J
 
 
-def solve_gauss_jordan(A, b):
-    """Solve A x = b by unpivoted Gauss-Jordan elimination, vectorized over
-    leading batch axes.
-
-    XLA's LuDecomposition is pathologically slow for batches of tiny
-    matrices on TPU (sequential pivoted panels); power-flow Jacobians near
-    the NR iterates are strongly diagonally dominant, so unpivoted
-    elimination is numerically safe here and runs as n rank-1 updates —
-    pure VPU work that vectorizes perfectly over the batch.  A singular
-    pivot yields inf/NaN, which the NR driver interprets as divergence,
-    matching scipy's behavior on singular systems.
-    """
-    n = A.shape[-1]
-    M = jnp.concatenate([A, b[..., :, None]], axis=-1)  # [..., n, n+1]
-    rows = jnp.arange(n)
-
-    def eliminate(k, M):
-        pivot_row = jnp.take(M, k, axis=-2)                    # [..., n+1]
-        pivot = jnp.take(pivot_row, k, axis=-1)                # [...]
-        factor = jnp.take(M, k, axis=-1) / pivot[..., None]    # [..., n]
-        mask = (rows != k).astype(M.dtype)                     # zero own row
-        update = (factor * mask)[..., :, None] * pivot_row[..., None, :]
-        return M - update
-
-    M = jax.lax.fori_loop(0, n, eliminate, M, unroll=8)
-    diag = jnp.diagonal(M[..., :, :n], axis1=-2, axis2=-1)
-    return M[..., -1] / diag
-
-
-def _batched_solve(J, F):
-    """Batched tiny-system solve: Pallas VMEM-resident kernel on TPU when
-    the batch tiles evenly, XLA Gauss-Jordan otherwise."""
-    lead = J.shape[:-2]
-    n = J.shape[-1]
-    B = int(np.prod(lead)) if lead else 1
-    Jf = J.reshape(B, n, n)
-    Ff = F.reshape(B, n)
-
-    platform = jax.devices()[0].platform
-    # Mosaic requires the lane-dim block (the batch tile) to be a multiple
-    # of 128 or the full batch; small batches go through whole (one tile).
-    tile = None
-    for t in (256, 128):
-        if B % t == 0:
-            tile = t
-            break
-    if tile is None and B <= 512:
-        tile = B
-    if platform != "cpu" and tile is not None:
-        from .linsolve_pallas import solve_gauss_jordan_pallas
-
-        x = solve_gauss_jordan_pallas(Jf, Ff, tile_b=tile)
-    else:
-        x = solve_gauss_jordan(Jf, Ff)
-    return x.reshape(*lead, n)
-
-
-@jax.custom_batching.custom_vmap
-def nr_linear_solve(J, F):
-    """The NR linear solve J·Δx = F.  Per-lane it is a plain Gauss-Jordan;
-    under vmap the whole batch is dispatched to the batched kernel."""
-    return solve_gauss_jordan(J, F)
-
-
-@nr_linear_solve.def_vmap
-def _nr_linear_solve_vmap(axis_size, in_batched, J, F):
-    J_b, F_b = in_batched
-    if not J_b:
-        J = jnp.broadcast_to(J, (axis_size,) + J.shape)
-    if not F_b:
-        F = jnp.broadcast_to(F, (axis_size,) + F.shape)
-    return _batched_solve(J, F), True
-
-
 def numpy_nr_solve(Y, p, q, xtol=1e-10, lim_iter=50):
     """Host-side float64 Newton-Raphson (pure numpy; no JAX involvement,
-    so it never touches the TPU at table-build time).  Returns the polar
-    state x* = [θ₁.., |V|₁..] of the solved operating point, or the flat
+    so it never touches the accelerator at table-build time).  Returns the
+    polar state x* = [θ₁.., |V|₁..] of the solved operating point, or the flat
     start if the solve does not converge.  Used to pick a chord
     linearization point for tasks whose typical loading is far from the
     flat start."""
@@ -253,8 +180,8 @@ def flat_start_inv_jacobian(Yre, Yim):
     Host-side, float64; call once per network at table-build time (nominal
     taps).  The returned [2(N−1), 2(N−1)] inverse is shared by every lane of
     an environment batch, so under ``vmap`` each chord iteration is a single
-    large ``[B, 2n] @ [2n, 2n]`` matmul on the MXU instead of a per-lane
-    Jacobian factorization.
+    large ``[B, 2n] @ [2n, 2n]`` matmul instead of a per-lane Jacobian
+    factorization.
     """
     Yre = jnp.asarray(Yre, jnp.float64)
     Yim = jnp.asarray(Yim, jnp.float64)
@@ -307,7 +234,7 @@ def make_chord_const(Y0re, Y0im, t_bus, dtype=np.float32, x_star=None) -> ChordC
 
         J(x0,a)⁻¹ F = invJ0·F − G · [W(I + C·W)⁻¹] · (H·F)
 
-    so under ``vmap`` every chord iteration is one [B,2n]@[2n,2n] MXU
+    so under ``vmap`` every chord iteration is one [B,2n]@[2n,2n]
     matmul, one [B,2n]@[2n,2]+[B,2]@[2,2n] correction, and one shared-Y0
     mismatch matmul — no per-lane [2n,2n] matrices touch HBM at all.  The
     identity is exact (no tap grid, no quantization), and valid at a = a₀
@@ -377,11 +304,9 @@ def _chord_lane_core(const: ChordConst, dtype, xtol, lim_iter, stall_tol_factor)
     H = jnp.asarray(const.H, dtype)
     C = jnp.asarray(const.C, dtype)
     n = Y0re.shape[-1] - 1
-    # Polynomial sin/cos for the f32 iteration: XLA's native trig costs
-    # ~7.35 µs per [8192, 32] sin+cos on the v5e while this fused Taylor
-    # form costs ~0.65 µs (measured round 5, forced-fetch protocol) — and
-    # the trig re-assembly was the single fattest kernel of the chord
-    # body (census: ~7 µs of a ~29 µs iteration).  For |θ| ≤ 0.5 rad the
+    # Polynomial sin/cos for the f32 iteration: a fused Taylor form in
+    # place of XLA's native trig, whose cost on the GPU is not yet
+    # measured against it (ROADMAP, Speed queue).  For |θ| ≤ 0.5 rad the
     # truncation error (sin ≤ 5e-9, cos ≤ 1e-7) sits at the f32 rounding
     # floor, so iterates, the residual, and the acceptance behavior are
     # unchanged to solver noise.  Validity is ENFORCED, not assumed: the
@@ -395,13 +320,11 @@ def _chord_lane_core(const: ChordConst, dtype, xtol, lim_iter, stall_tol_factor)
     trig_radius = 0.5
     # Packed mismatch matvec: the four real [B, N]@[N, N] HIGHEST products
     # of the complex Y·V become two [B, N]@[N, 2N] matmuls against the
-    # constant [Y0ᵀ | Y0imᵀ] block.  N=33 pads to the 128-wide MXU lane
-    # tile either way, so the doubled RHS width is nearly free while the
-    # LHS streams once per product pair — measured 12.63 → 9.28 µs per
-    # 4-product group at B=8192 (−27%), BIT-IDENTICAL results (each
-    # output element keeps its own dot's summation order; the rejected
-    # round-3 "split-complex packing" concatenated the BATCH operand
-    # per iteration and changed summation order — different scheme).
+    # constant [Y0ᵀ | Y0imᵀ] block, so the LHS streams once per product
+    # pair.  Results are BIT-IDENTICAL to the four-product form (each
+    # output element keeps its own dot's summation order; packing the
+    # BATCH operand instead would change summation order — a different
+    # scheme).
     W_pack = jnp.concatenate([Y0re.T, Y0im.T], axis=1)
 
     def sincos(t):
@@ -433,11 +356,7 @@ def _chord_lane_core(const: ChordConst, dtype, xtol, lim_iter, stall_tol_factor)
         # HIGHEST precision: this is the convergence criterion (see
         # _mismatch); the chord UPDATE matmuls below stay at the fast
         # default — they only shape the iteration path, not its fixed
-        # point.  (A two-phase HIGH→HIGHEST scheme was tried and rejected:
-        # at this shape the [8192,33]@[33,33] matmul costs ~2.3µs at
-        # HIGHEST vs ~1.7µs at HIGH — the precision passes are a small
-        # slice of the ~25µs/iteration budget, so the scheme saves nothing
-        # while complicating the acceptance logic.  See docs/performance.md.)
+        # point.
         A = jnp.matmul(v_re, W_pack, precision=jax.lax.Precision.HIGHEST)
         Bp = jnp.matmul(v_im, W_pack, precision=jax.lax.Precision.HIGHEST)
         yv_re = A[: n + 1] - Bp[n + 1:] + e_t * dtf_re
@@ -456,13 +375,11 @@ def _chord_lane_core(const: ChordConst, dtype, xtol, lim_iter, stall_tol_factor)
         #   dQ_t/d|V_t| = Im(V̂* conj δ) = (vb·d_r − va·d_i)/|V*|
         # At the flat start (V* = 1) this is exactly [[Im δ, Re δ],
         # [Re δ, −Im δ]], the original formula.
-        # K is unrolled to SCALAR algebra.  Forming per-lane [2, 2] tensors
-        # here costs real step time under vmap: the [B, 2, 2] K becomes a
-        # bf16 batched-dot operand of the while body, and XLA inserts three
-        # [8192, 2, 2] layout-conversion copies per step (~22 µs, measured
-        # in the round-4 HLO census).  As [B] scalars the whole correction
-        # chain fuses and runs f32 on the VPU (the fixed point is
-        # unchanged — the stopping rule tests the true mismatch).
+        # K is unrolled to SCALAR algebra.  Per-lane [2, 2] tensors would
+        # make the [B, 2, 2] K a batched-dot operand of the while body, with
+        # layout-conversion copies around it; as [B] scalars the whole
+        # correction chain fuses into elementwise f32 work (the fixed point
+        # is unchanged — the stopping rule tests the true mismatch).
         d_i, d_r = w_a, w_b
         w00 = va * d_i - vb * d_r
         w01 = (va * d_r + vb * d_i) / vmag
@@ -530,18 +447,18 @@ def _chord_lane_core(const: ChordConst, dtype, xtol, lim_iter, stall_tol_factor)
         # only shapes the path, the fixed point F(x)=0 and its
         # true-residual test are identical.
         # Elementwise multiply+reduce, NOT jnp.vdot: vdot lowers to a
-        # dot_general whose TPU default multiplies in bf16, adding noise to
-        # γ that only shows up on hardware (the acceptance-cliff regression
-        # test runs on CPU).  The VPU form is f32-exact and just as fast on
-        # 2n-vectors.
+        # dot_general whose accelerator default may multiply in reduced
+        # precision (TF32/bf16), adding noise to γ that only shows up on
+        # hardware (the acceptance-cliff regression test runs on CPU).
+        # The elementwise form is f32-exact on 2n-vectors.
         # First iteration has no history; clamp extrapolation for
         # safety (runaway γ near a stagnating pair).  CRITICAL: disable
         # the acceleration once the residual is within ~100x of xtol —
         # AA's non-monotone path can otherwise stall a rare lane JUST
         # above the 10·xtol plateau-acceptance bound (measured: ~1 lane
         # in 8192), and a single unaccepted lane drags the whole
-        # vmapped batch through the exact-NR fallback body every step
-        # (~4x slowdown at B=8192).  Below the gate, plain chord
+        # vmapped batch through the exact-NR fallback body every step.
+        # Below the gate, plain chord
         # contracts monotonically (~0.25/iter) into the plateau rule
         # exactly as before.
         use_aa = jnp.logical_and(it > 0, diff > 100.0 * xtol)
@@ -556,7 +473,7 @@ def _chord_lane_core(const: ChordConst, dtype, xtol, lim_iter, stall_tol_factor)
             # min‖f − [df1 df2]γ‖², by 2×2 normal equations.  When the
             # pairs are near-collinear (or only one exists: it == 1) the
             # determinant term vanishes and the lane falls back to the
-            # AA(1) secant step.  Same VPU-exact sums as AA(1) (no vdot).
+            # AA(1) secant step.  Same elementwise f32-exact sums as AA(1) (no vdot).
             g_prev2, f_prev2 = hist2
             df1 = f - f_prev
             df2 = f_prev - f_prev2
@@ -581,9 +498,7 @@ def _chord_lane_core(const: ChordConst, dtype, xtol, lim_iter, stall_tol_factor)
         # residual so far by ≥20% — at the f32 rounding floor the
         # residual bounces around its plateau, so comparing against
         # best-so-far (not the previous iterate) is what terminates
-        # reliably.  (Doubling updates per loop trip was tried and is
-        # ~17% SLOWER at B=8192: the batch-wide matmuls dominate, loop
-        # overhead doesn't.)
+        # reliably.
         improving = new_diff < best * 0.8
         stall = jnp.where(improving, 0, stall + 1)
         best = jnp.minimum(best, new_diff)
@@ -685,17 +600,6 @@ def chord_solve(p, q, w_a, w_b, dtf_re, dtf_im, const: ChordConst,
     return epilogue(data, out)
 
 
-# A "straggler compaction" batch driver (gather the few still-active
-# lanes into a B/8 buffer for the tail iterations via
-# jnp.nonzero(size=C)) was measured on TPU and DELETED: at C=1024 the
-# headline B=8192 program fails compilation (scoped-VMEM OOM in the
-# nonzero reduce-window lowering, BENCH_r04), and at C=128 it compiles
-# but runs 2.15x SLOWER than the plain batched loop (8.7M vs 18.8M
-# env-steps/s) — the gather/scatter and the second while loop cost far
-# more than the few full-width tail iterations they save on this
-# event-count-bound step.  See docs/performance.md "Negative results".
-
-
 def nr_solve_lazy(ybus_fn, p, q, xtol=1e-5, lim_iter=100, init=None) -> NRResult:
     """Exact-NR fallback whose admittance matrix is built INSIDE the loop
     body by ``ybus_fn() -> (Yre, Yim)``.
@@ -729,8 +633,7 @@ def nr_solve_lazy(ybus_fn, p, q, xtol=1e-5, lim_iter=100, init=None) -> NRResult
         Yre, Yim = ybus_fn()
         _, (v_re, v_im, yv_re, yv_im) = _mismatch(x, p, q, Yre, Yim, n)
         J = _jacobian(v_re, v_im, yv_re, yv_im, Yre, Yim, n)
-        linsolve = nr_linear_solve if f32_mode else solve_gauss_jordan
-        x = x - linsolve(J, F)
+        x = x - jnp.linalg.solve(J, F)
         F, _ = _mismatch(x, p, q, Yre, Yim, n)
         new_diff = jnp.max(jnp.abs(F))
         improving = new_diff < diff * 0.5
@@ -808,23 +711,15 @@ def nr_solve(Yre, Yim, p, q, xtol=1e-5, lim_iter=100, init=None) -> NRResult:
             active = jnp.logical_and(active, stall < stall_limit)
         return active
 
-    # float64 on CPU (parity tier) uses the LAPACK-exact solve; float32
-    # (TPU throughput tier) uses the batched Gauss-Jordan kernel, ~50x
-    # faster than XLA's tiny-batch LU on TPU.  float64 on TPU also goes
-    # through Gauss-Jordan: TPU's LuDecomposition custom call only
-    # implements F32/C64.
-    if dtype == jnp.float64 and jax.devices()[0].platform == "cpu":
-        linsolve = jnp.linalg.solve
-    elif dtype == jnp.float64:
-        linsolve = solve_gauss_jordan
-    else:
-        linsolve = nr_linear_solve
-
+    # The Newton step is a pivoted LU solve (jnp.linalg.solve) in both
+    # dtypes: the same factorization family as the reference's sparse LU,
+    # and under vmap one batched library call — faster on the GPU than
+    # plain-XLA Gauss-Jordan at the fallback's [B, 64, 64] (PERF.md).
     def body(carry):
         x, F, diff, it, stall = carry
         _, (v_re, v_im, yv_re, yv_im) = _mismatch(x, p, q, Yre, Yim, n)
         J = _jacobian(v_re, v_im, yv_re, yv_im, Yre, Yim, n)
-        x = x - linsolve(J, F)
+        x = x - jnp.linalg.solve(J, F)
         F, _ = _mismatch(x, p, q, Yre, Yim, n)
         new_diff = jnp.max(jnp.abs(F))
         improving = new_diff < diff * 0.5

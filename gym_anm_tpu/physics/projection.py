@@ -1,6 +1,6 @@
 """Exact Euclidean projection onto small 2-D polytopes.
 
-TPU-native replacement for the per-device cvxpy QPs of the reference
+Device-side replacement for the per-device cvxpy QPs of the reference
 (``gym_anm/simulator/components/devices.py:282-306`` for generators and
 ``:474-524`` for storage units).  Each device's feasible (P, Q) region is a
 convex polygon described by at most ~10 half-planes; the projection of a
@@ -154,7 +154,7 @@ def make_box_slopes_projector(q_lo, q_hi, uppers, lowers):
     runtime (generator potential, storage SoC-rate rows).  vmap over a
     leading lane axis dispatches to a batch-minor [G, B] layout — the same
     trick as :func:`project_polytope_2d`: batch-leading [B, G] tails with
-    G ≈ 5 would waste ~96% of each 128-wide TPU tile.
+    G ≈ 5 would leave the minor dimension almost empty.
     """
     q_lo = np.asarray(q_lo)
     q_hi = np.asarray(q_hi)
@@ -198,10 +198,10 @@ def _project_batched(point, A, b, pair_i, pair_j):
     Same candidate enumeration as :func:`_project_impl`, but every
     intermediate keeps the LANE axis on the minor (last) dimension.  Under
     plain vmap the per-lane [n_cand, K] intermediates land batch-leading,
-    so each op's (n_cand, K) tail pads to the TPU's (8, 128) tile — an
-    ~18x memory blowup that made the 5-generator projection ~60% of the
-    whole IEEE33-renewable step.  With [n_cand, K, G, B] layouts the lane
-    dim fills the 128-wide tiles densely.
+    so each op's tiny (n_cand, K) tail is the minor dimension.  With
+    [n_cand, K, G, B] layouts the lane dim is minor and dense instead.
+    (Chosen for the previous accelerator's tiled layouts; ROADMAP's Speed
+    queue decides it again on the GPU.)
     """
     pair_i = np.asarray(pair_i)
     pair_j = np.asarray(pair_j)
@@ -253,9 +253,8 @@ def _project_impl(point, A, b, pair_i, pair_j):
     # NOTE on style: every "A·x" below is written as explicit 2-term
     # broadcast arithmetic (ax·x + ay·y), NOT as @/dot.  Under vmap over
     # lanes×devices the dot form becomes a huge batch of [29,2]@[2,K]
-    # matmuls, which XLA lowers catastrophically on TPU (measured: ~1.9 ms
-    # of a 2.8 ms step at B=8192×5 generators — ~60% of the whole
-    # transition); the expanded form is plain fused VPU elementwise work.
+    # tiny matmuls, each a separate kernel; the expanded form is plain
+    # fused elementwise work.
     ax, ay = A[:, 0], A[:, 1]
     px, py = point[0], point[1]
 
@@ -330,7 +329,7 @@ def project_polytope_2d(point, A, b, pair_idx):
     """Project ``point`` [G, 2] onto {x : A x ≤ b} per device.
 
     A: [G, K, 2], b: [G, K]; ``pair_idx`` from :func:`make_pair_indices`.
-    vmap over a leading lane axis dispatches to a batch-minor TPU layout
+    vmap over a leading lane axis dispatches to a batch-minor layout
     (see :func:`_project_batched`).
     """
     pi = np.asarray(pair_idx[0])

@@ -1,6 +1,6 @@
 """Minimal RFC 6455 WebSocket broadcast server (pure stdlib).
 
-TPU-native replacement for the reference's ``websocket-server``-backed
+Dependency-free replacement for the reference's ``websocket-server``-backed
 ``WsServer`` (``rendering/py/servers.py:14-141``): the same hub semantics —
 browser clients connect and receive every message the environment
 publishes, with the most recent ``init`` message replayed to late joiners —

@@ -1,6 +1,6 @@
 """Static network specification: parsing, validation and flat tables.
 
-This is the TPU-native replacement for the reference's object model
+This is the array-based replacement for the reference's object model
 (``gym_anm/simulator/components/{bus,branch,devices}.py`` and
 ``gym_anm/simulator/check_network.py``).  Instead of one Python object per
 bus/branch/device, the whole grid is parsed ONCE into flat numpy arrays

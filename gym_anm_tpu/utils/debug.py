@@ -1,7 +1,7 @@
 """NaN / divergence debugging tools (SURVEY §5 "race detection" analogue).
 
 The reference's CUDA debugging story is compute-sanitizer-style tooling;
-the TPU/XLA equivalent failure mode is a NaN/Inf produced inside one
+the XLA equivalent failure mode is a NaN/Inf produced inside one
 fused kernel and only OBSERVED many fusions downstream (or swallowed
 entirely — ``diff > xtol`` is False for NaN, which is why the solvers
 sanitize their exits, power_flow.py).  Three tools:
@@ -133,7 +133,7 @@ def explain_divergence(info, done, xtol: float = 1e-4,
     * ``terminated_converged`` — done lanes whose solve converged (e.g.
       V-bound termination);
     * ``unhealthy`` — LIVE lanes with residual above ``xtol``: the bug
-      class (a probe must never see these — scripts/verify_tpu.py);
+      class (a probe must never see these — chip_smoke.py);
     * plus scalars ``n_iter_max`` and ``worst_live_diff``.
     """
     done = np.asarray(done).astype(bool).reshape(-1)

@@ -86,7 +86,7 @@ def _tap_from_idx(idx, dtype=None):
 def _wf(pred, a, b, dt):
     """``jnp.where`` with float-literal branches pinned AT ``dt``: under
     the global x64 flag a where() of two weak Python floats selects in
-    f64 (emulated on TPU; guarded by tests/test_no_f64_hotpath.py)."""
+    f64 (guarded by tests/test_no_f64_hotpath.py)."""
     return jnp.where(pred, jnp.asarray(a, dt), jnp.asarray(b, dt))
 
 
@@ -255,7 +255,7 @@ def make_l4(env):
 
         # Explicit dtype on the where-of-scalars: under global x64 a
         # where(pred, 0.6, 1.0) of weak python floats resolves to float64
-        # and promotes the downstream action math (emulated f64 on TPU).
+        # and promotes the downstream action math to f64.
         dt = env.dtype
         base = jnp.where(
             jnp.logical_and(trend > 0.005, v_max > 1.02), jnp.asarray(0.16, dt),
@@ -343,8 +343,8 @@ def make_l5(env):
     n_gen = env.spec.n_gen
     # Cast to the env dtype: under global x64 these would otherwise be
     # strong f64 constants that promote the whole search (and the action
-    # scatters) to float64 — a FutureWarning today and a pathologically
-    # slow TPU compile (no native f64).
+    # scatters) to float64 — a FutureWarning today, and f64 work on the
+    # f32 hot path.
     grid = jnp.asarray(_l5_grid(), env.dtype)   # [M, 4]
     grid_tap = jnp.asarray(TAP_POSITIONS, env.dtype)[grid[:, 3].astype(jnp.int32)]
 
@@ -374,7 +374,7 @@ def make_l5(env):
         # The switching-penalty terms are bool arrays scaled by python
         # floats — under global x64 that promotes to float64 (bools carry
         # no float dtype, so the WEAK scalar resolves to the f64 default)
-        # and drags the whole cost/argmin to emulated f64 on TPU.  Cast
+        # and drags the whole cost/argmin to f64.  Cast
         # the bools to the env dtype first.
         cost = (
             100.0 * jnp.maximum(0.95 - pv_min, 0.0) ** 2

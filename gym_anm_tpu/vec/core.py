@@ -9,7 +9,7 @@ functions
 
 over flat array state, so that ``jax.vmap`` runs thousands of independent
 grid instances in lockstep, ``jax.lax.scan`` runs whole rollouts on-device,
-and ``jax.sharding``/``shard_map`` spreads the batch across TPU meshes.
+and ``jax.sharding``/``shard_map`` spreads the batch across device meshes.
 The MDP semantics (state layout, reward clipping, terminal handling,
 reset-retry) mirror the reference ``ANMEnv`` (anm_env.py:235-469); the
 stochastic hooks use ``jax.random`` instead of numpy RNGs (bit-level RNG
@@ -37,9 +37,9 @@ def farm_keys(seed, n, impl=None):
     across backends.  ``impl="rbg"`` selects the ``RngBitGenerator``-backed
     implementation: per-lane *bulk* sampling (the stochastic tasks' load
     noise, policy draws) compiles to XLA's native fast RNG instead of
-    threefry's elementwise bit mixing, which on TPU lowers to a sequential
-    kLoop fusion that dominates the stochastic tasks' step time
-    (docs/performance.md).  Every VecEnv entry point accepts either kind —
+    threefry's elementwise bit mixing (chosen when threefry dominated the
+    stochastic tasks' step time on the previous accelerator; not yet
+    measured on the GPU).  Every VecEnv entry point accepts either kind —
     the key chains (split/fold_in) are structured identically; only the
     stream values differ, so rbg trajectories are not bit-reproducible
     across backends/jaxlib versions (fine for throughput/training work,
@@ -118,7 +118,7 @@ class VecEnv:
 
     All methods are pure functions of their inputs; wrap them in
     ``jax.jit``/``jax.vmap``/``shard_map`` freely.  ``dtype`` selects the
-    compute precision: float64 for CPU parity work, float32 for TPU
+    compute precision: float64 for parity work, float32 for
     throughput (the NR tolerance of 1e-5 is comfortably reachable in f32
     for these network scales).
 

@@ -37,7 +37,7 @@ class _Spec:
         npdt = np.dtype(env.dtype)
         # generators (non-slack): bus position + renewable mask.  Bound
         # tables are stored AT the env dtype: f64 numpy constants mixed
-        # into f32 lane math promote the whole expression to (TPU-emulated)
+        # into f32 lane math promote the whole expression to
         # float64 under the package's global x64.
         gp = spec.gen_nonslack_pos
         self.gen_bus = np.asarray(spec.dev_bus[gp])

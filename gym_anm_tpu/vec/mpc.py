@@ -6,15 +6,15 @@ with scipy HiGHS — the shape of the reference's cvxpy agent
 module solves the SAME LP (the two tiers share one
 :class:`~gym_anm_tpu.agents.mpc.DCOPFStructure` assembly) for thousands of
 lanes at once, inside ``jit``/``vmap``/``lax.scan``, so MPC-in-the-loop
-rollouts and dataset generation run entirely on the TPU.
+rollouts and dataset generation run entirely on the device.
 
 The solver is an OSQP-style ADMM.  The key fit to this problem family —
-and to the TPU — is that the constraint matrix is *lane-invariant*: across
+and to a batched accelerator — is that the constraint matrix is *lane-invariant*: across
 a batch of grids only the bound vector varies (pinned load forecasts,
 renewable potential caps, the stage-0 SoC), so the ADMM's quasi-definite
 KKT system ``(σI + Aᵀdiag(ρ)A) x̃ = rhs`` is factorized ONCE on the host
 and every device iteration is four shared-matrix matvecs — batched into
-``[B,·]@[·,·]`` MXU matmuls under ``vmap``, exactly the pattern of the
+``[B,·]@[·,·]`` matmuls under ``vmap``, exactly the pattern of the
 chord load-flow solver (docs/performance.md).  Warm-starting from the
 previous env step's scaled ADMM state (passed back verbatim — the
 successive LPs differ only in a few bound entries, so no stage shift is
@@ -376,7 +376,7 @@ def solve_dcopf(spec: VecDCOPF, l, u, warm=None) -> DCOPFSolution:
 
     def sweep(_, s):
         """One bare ADMM iteration (no residuals): 3 shared-matrix
-        matvecs (the MXU work; HIGHEST: convergence-feeding) + the
+        matvecs (the matmul work; HIGHEST: convergence-feeding) + the
         relax/clip/dual elementwise chain.  The KKT rhs needs only
         Āᵀ(ρz − y) — one matvec, not the two (Āᵀρz, Āᵀy) the textbook
         form suggests; Āᵀy alone is needed only by the dual residual,
@@ -402,7 +402,7 @@ def solve_dcopf(spec: VecDCOPF, l, u, warm=None) -> DCOPFSolution:
     def body(carry):
         x, y, z, Ax, it, _, _, best_rp, best_rd, stall, _ = carry
         # K bare sweeps per convergence check: the residual reductions +
-        # exit select chain cost ~40% of a sweep, and solves run 1e2-4e3
+        # exit select chain cost a large share of a sweep, and solves run 1e2-4e3
         # iterations, so checking every iteration wastes real time.  An
         # exit is delayed by at most K-1 sweeps.  K=1 is the original
         # check-every-iteration program (modulo the dual residual now
@@ -533,12 +533,12 @@ def make_vec_mpc(
     budget (``max_iter=48``), not solve-to-convergence.  Because the
     ADMM state carries across env steps, an un-polished iterate keeps
     converging over the next steps while the plant acts on the current
-    one.  Measured full-day closed-loop reward (round-5 TPU sweep,
-    B=256 × 96 steps, ANM6Easy N=1 constant) is FLAT from budget 16 up —
+    one.  Measured full-day closed-loop reward (B=256 × 96 steps,
+    ANM6Easy N=1 constant) is FLAT from budget 16 up —
     −0.594/−0.594/−0.600/−0.593/−0.601/−0.598 at max_iter
     16/24/32/48/96/200 — with a quality CLIFF at 8 (−0.648); budget 48
-    sits 6× above the cliff while tripling farm throughput vs the old
-    200 default (workload-4: 8.0M vs 2.7M env-steps/s at B=8192).  On
+    sits 6× above the cliff at a quarter of the old 200 default's
+    per-step iteration cap.  On
     IEEE33-renewable N=1 the budget is quality-neutral (−0.00873 at both
     48 and 200), and at N=8 perfect small budgets are strictly BETTER
     (−0.270 at 48 vs −0.342 at 200 — unbounded per-step polish chases
@@ -632,7 +632,7 @@ def profile_forecast_fn(env, planning_steps: int, tables_mw: Optional[tuple] = N
                 "profile_forecast_fn needs explicit tables_mw for task "
                 f"{env.task.name!r} (only anm6easy has built-in profiles)"
             )
-        from ..compat.anm6_easy import _get_gen_time_series, _get_load_time_series
+        from ..networks.anm6 import _get_gen_time_series, _get_load_time_series
 
         tables_mw = (_get_load_time_series(), _get_gen_time_series())
 

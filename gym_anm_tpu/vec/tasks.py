@@ -114,7 +114,7 @@ def _nominal_x_star(spec, load_factor):
     float64 operating state at ``load_factor`` × nominal loads (renewable
     potentials at the family's quirk value of zero, caps off, nominal
     taps).  Pure-numpy host computation (physics/power_flow.numpy_nr_solve)
-    — nothing touches the TPU at task-build time.  Iteration-count tuning
+    — nothing touches the accelerator at task-build time.  Iteration-count tuning
     only: the flat-start Jacobian is a poor chord matrix at |V| ≈ 0.95,
     and linearizing here cuts the per-step iteration count for the whole
     family.  Falls back to the flat start if the nominal case diverges."""
@@ -161,8 +161,8 @@ def _make_renewable_family_task(network, name, load_scale=1.0, scenario="default
         # task carry = hour of day.  Drawn at f32: under the global x64
         # flag an unannotated scalar draw is f64, and the f64 carry drags
         # its whole downstream chain (clock advance, diurnal sine, the
-        # reset-retry loop) into emulated-f64 ops on TPU — the same trap
-        # as the load-noise whale (docs/performance.md).  A f32 hour is
+        # reset-retry loop) into f64 ops — the same trap as the load
+        # noise below.  A f32 hour is
         # exact to ~1e-7 relative, far below the 2%-noise process it
         # modulates; weak-typed Python-float arithmetic below stays f32.
         return jax.random.uniform(key, (), dtype=jnp.float32) * 24.0
@@ -179,10 +179,9 @@ def _make_renewable_family_task(network, name, load_scale=1.0, scenario="default
         hour = (hour + delta_t / 3600.0) % 24.0
         time_factor = (0.8 + 0.3 * jnp.sin((hour - 3.0) * jnp.pi / 12.0)).astype(s_t.dtype)
         # Draw the noise AT the state dtype.  Under the package's global
-        # jax_enable_x64, an unannotated normal() is float64 — and f64
-        # erf_inv/threefry on TPU lowers to an emulated sequential kLoop
-        # fusion that cost ~0.46 ms/step at B=8192, over a third of the
-        # whole multicap step (docs/performance.md, round-3 trace).
+        # jax_enable_x64, an unannotated normal() is float64, which puts
+        # f64 erf_inv/threefry work on the f32 hot path
+        # (tests/test_no_f64_hotpath.py guards it).
         noise = 1.0 + 0.02 * jax.random.normal(key, nominal_mw.shape, dtype=s_t.dtype)
         loads = -nominal_mw.astype(s_t.dtype) * (load_scale * time_factor * noise)
         zeros_tail = jnp.zeros(n_vars - spec.n_load, dtype=s_t.dtype)
@@ -263,7 +262,7 @@ def make_ieee33_unequal_task(load_scale=1.0, scenario="default",
 def make_anm6easy_task():
     """The ANM6Easy task: fixed 96-step daily profiles, K=1 time-of-day aux,
     Δt = 15 min (anm6_easy.py:11-65)."""
-    from ..compat.anm6_easy import _get_gen_time_series, _get_load_time_series
+    from ..networks.anm6 import _get_gen_time_series, _get_load_time_series
 
     spec = load_network(anm6_network)
     K = 1
@@ -285,8 +284,9 @@ def make_anm6easy_task():
 
     def init_state_fn(key, carry):
         # Built in f32 (the reset branch is hot for ANM6 farms — lanes
-        # genuinely collapse under aggressive actions — and batched f64 is
-        # emulated on TPU); the reset path casts to the env dtype after.
+        # genuinely collapse under aggressive actions — and batched f64
+        # would put f64 work on it); the reset path casts to the env dtype
+        # after.
         k_t, k_q, k_soc = jax.random.split(key, 3)
         t0 = jax.random.randint(k_t, (), 0, n_steps_day)
         s = jnp.zeros(2 * n_dev + n_des + n_gen + K, f32)
@@ -308,7 +308,7 @@ def make_anm6easy_task():
         aux = jnp.mod(s_t[-1] + 1, n_steps_day).astype(jnp.int32)
         # Materialize the numpy tables AT the state dtype: the constants
         # enter the program already f32 on the f32 tier, so no f64 tables
-        # or batched f64 gathers (emulated on TPU) reach the hot step (see
+        # or batched f64 gathers reach the hot step (see
         # the renewable family's noise draw for the same x64 trap).
         loads_t = jnp.asarray(P_loads, s_t.dtype)
         maxs_t = jnp.asarray(P_maxs, s_t.dtype)

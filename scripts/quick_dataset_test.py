@@ -12,8 +12,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-# Compat tier (float64 single-env) runs on CPU by default; --tpu opts in.
-if "--tpu" not in sys.argv:
+# Compat tier (float64 single-env) runs on CPU by default; --gpu opts in.
+if "--gpu" not in sys.argv:
     import jax
 
     jax.config.update("jax_platforms", "cpu")

@@ -18,8 +18,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-# Compat tier (float64 single-env) runs on CPU by default; --tpu opts in.
-if "--tpu" not in sys.argv:
+# Compat tier (float64 single-env) runs on CPU by default; --gpu opts in.
+if "--gpu" not in sys.argv:
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -144,7 +144,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--out", default="load_pattern_report")
-    ap.add_argument("--tpu", action="store_true", help="run on the TPU backend")
+    ap.add_argument("--gpu", action="store_true", help="run on the GPU backend")
     args = ap.parse_args()
 
     all_results = {}

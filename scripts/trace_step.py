@@ -13,6 +13,7 @@ import collections
 import glob
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
@@ -106,12 +107,9 @@ def summarize(trace_dir, n_steps_total, top=25):
     device_planes = []
     for f in files:
         for plane in parse_xspace(f):
-            # Real accelerator planes only: the '/device:CUSTOM:Megascale
-            # Trace' plane duplicates transfer events already on the TPU
-            # plane.
-            if "CUSTOM" in plane["name"]:
-                continue
-            if "TPU" in plane["name"] or "/device:" in plane["name"]:
+            # Real accelerator planes only ('/device:GPU:0', ...); custom
+            # planes carry no kernels of their own.
+            if "/device:" in plane["name"] and "CUSTOM" not in plane["name"]:
                 device_planes.append(plane)
     assert device_planes, "no device plane found in trace"
 
@@ -181,13 +179,11 @@ def main():
     state, obs, tot = run_jit(state, obs, 0)  # compile + warm
     jax.block_until_ready(tot)
 
-    trace_dir = f"/tmp/jax-trace-{which}-{batch}"
-    # The path is deterministic: a dump from a previous run would be
-    # summed together with this run's by the recursive glob (observed:
-    # every plane listed twice, all counts doubled).  Start clean.
-    import shutil
-
-    shutil.rmtree(trace_dir, ignore_errors=True)
+    # A fresh directory per run (under $TMPDIR): the recursive glob in
+    # summarize() would otherwise sum an older dump with this one, and two
+    # checkouts tracing on one machine would overwrite each other's.
+    trace_dir = tempfile.mkdtemp(prefix=f"jax-trace-{which}-{batch}-")
+    print(f"trace: {trace_dir}")
     n_reps = 2
     with jax.profiler.trace(trace_dir):
         for rep in range(n_reps):

@@ -1,8 +1,9 @@
 """Test configuration.
 
-All tests run on CPU: float64 parity math needs it (TPU has no f64 LU), and
-the multi-device sharding tests use 8 virtual CPU devices.  These settings
-must land before the JAX backend initializes.
+All tests run on CPU, which is the reference backend of the parity tier,
+and the multi-device sharding tests use 8 virtual CPU devices.  These
+settings must land before the JAX backend initializes.  Tests marked
+``gpu`` skip here; chip_smoke.py runs their checks on the card.
 """
 
 import os
@@ -92,3 +93,11 @@ def reference():
 requires_reference = pytest.mark.skipif(
     not reference_available(), reason="reference implementation not available"
 )
+
+
+@pytest.fixture
+def gpu():
+    """Skip unless JAX's default device is a GPU.  Decided when the test
+    runs, never at import, so every xdist worker collects the same tests."""
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs a GPU; chip_smoke.py runs this check on the card")

@@ -161,39 +161,36 @@ def test_warm_start_guess_independent(env64):
     assert bool(jnp.isfinite(obs).all())
 
 
+def _assert_acceptance_total(batch=8192):
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke
+
+    for seed, (n_unaccepted, max_diff) in enumerate(chip_smoke.chord_acceptance(batch)):
+        assert n_unaccepted == 0, (
+            f"seed {seed}: {n_unaccepted}/{batch} lanes unaccepted — each one "
+            "forces the batch-wide NR fallback")
+        assert max_diff <= 1e-4
+
+
 def test_chord_acceptance_rate_is_total():
     """Under the bench-like action distribution (random caps in [0,1] p.u.,
     random taps in [0.9,1.1], B=8192), EVERY lane's chord exit must be
     accepted.  This guards the solver's worst performance cliff: under
     vmap, a single unaccepted lane drags the whole batch through the
-    exact-NR fallback body every step (~4x throughput loss measured) —
-    exactly what an unsafeguarded acceleration tweak caused once."""
-    env32 = VecEnv(make_ieee33_task(), dtype=jnp.float32)
-    tb = env32.tables
-    n = tb.n_bus - 1
-    B = 8192
+    exact-NR fallback body every step — exactly what an unsafeguarded
+    acceleration tweak caused once."""
+    _assert_acceptance_total()
 
-    def lane(p, q, a):
-        inv_da = 1.0 / a - 1.0 / tb.chord_a0
-        dtf_re = -(tb.chord_y_re) * inv_da
-        dtf_im = -(tb.chord_y_im) * inv_da
-        return chord_solve(p, q, dtf_im, dtf_re, dtf_re, dtf_im, tb.chord)
 
-    solve = jax.jit(jax.vmap(lane))
-    for seed in range(3):
-        key = jax.random.PRNGKey(seed)
-        qc = jax.random.uniform(key, (B, 2), jnp.float32)
-        taps = jax.random.uniform(jax.random.fold_in(key, 1), (B,), jnp.float32, 0.9, 1.1)
-        q_ns = jnp.zeros((B, n), jnp.float32).at[:, 7].set(qc[:, 0]).at[:, 24].set(qc[:, 1])
-        p_ns = jnp.zeros((B, n), jnp.float32)
-        x, F, diff, it, acc = solve(p_ns, q_ns, taps)
-        n_unaccepted = int(jnp.sum(~acc))
-        assert n_unaccepted == 0, (
-            f"seed {seed}: {n_unaccepted}/{B} lanes unaccepted "
-            f"(worst diff {float(jnp.max(jnp.where(acc, 0.0, diff))):.2e}) — "
-            "each one forces the batch-wide NR fallback"
-        )
-        assert float(jnp.max(diff)) <= 1e-4
+@pytest.mark.gpu
+def test_chord_acceptance_rate_is_total_on_gpu(gpu):
+    """The same guard under the GPU's default matmul precision (TF32 for
+    the chord update's default-precision dots), which the CPU cannot
+    show; chip_smoke.py phase b runs this check on the card."""
+    _assert_acceptance_total()
 
 
 def test_chord_divergence_recovers_via_fallback(env64):
@@ -347,9 +344,7 @@ def test_chord_warm_start_batch_contract():
     warm starts spread per-lane iteration counts; one lane has a NaN
     guess and must reset to the flat start): acceptance total, every
     lane at/below the plateau bound, and the straggler spread the
-    batched while loop has to mask through actually exists.  (A
-    straggler-compaction batch dispatch was measured 2.15x slower on TPU
-    and deleted — power_flow.py note; this pins the surviving path.)"""
+    batched while loop has to mask through actually exists."""
     tb = VecEnv(make_ieee33_task(), dtype=jnp.float32).tables
     B = 2048
     args = _bench_like_problem(tb, B)

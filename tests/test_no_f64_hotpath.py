@@ -2,11 +2,10 @@
 
 The package enables ``jax_enable_x64`` globally (the compat/parity tier
 needs it), which makes any UNANNOTATED scalar draw, constant, or
-``where``-of-scalars default to f64 — and f64 elementwise/RNG ops on TPU
-lower to emulated sequential kLoop fusions.  One such leak (the diurnal
-load-noise draw) cost 455 µs/step at B=8192 — over a third of the whole
-flagship step; a second (the hour-of-day task carry) dragged ~76 f64 ops
-through the clock/sine/reset-retry chain (docs/performance.md).
+``where``-of-scalars default to f64, putting f64 elementwise/RNG work on the
+f32 hot path.  Two such leaks were found this way: the diurnal load-noise
+draw, and the hour-of-day task carry, which dragged ~76 f64 ops through the
+clock/sine/reset-retry chain.
 
 This test compiles the actual reset/step programs of every f32 task and
 asserts the optimized HLO contains ZERO f64-producing instructions, so

@@ -186,3 +186,52 @@ def test_numpy_nr_solve_matches_baseline_vmin():
     vm = x[N - 1:]
     assert np.all(np.isfinite(vm))
     np.testing.assert_allclose(vm.min(), 0.95328, atol=5e-5)
+
+
+@pytest.mark.parametrize("batch", [1, 7, 256])
+def test_f32_nr_solve_vmapped_matches_numpy(batch):
+    """The f32 exact-NR fallback under vmap, from flat start, reaches the
+    pure-numpy float64 solution (numpy_nr_solve, solved to 1e-10) within
+    1e-4 p.u. on every lane — whatever the batch size, since the batched
+    solve is the same plain XLA program for any leading shape."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke
+
+    Y, p, q = chip_smoke.nr_reference_problems(batch, seed=batch)
+    v_ref = chip_smoke.numpy_reference_voltages(Y, p, q)
+    max_dv, n_unstable = chip_smoke.nr_solve_max_dv(Y, p, q, np.float32, v_ref)
+    assert n_unstable == 0
+    assert max_dv <= chip_smoke.NR_V_TOL[np.float32], max_dv
+
+
+
+@pytest.mark.parametrize("voltages", ["flat", "random"])
+def test_branch_penalty_flow_ignores_sign_of_zero_p(voltages):
+    """The penalty's branch term reads max(|S_from|, |S_to|).  The signed
+    flow equals it up to sign, except where p_from is exactly 0 and sign()
+    zeroes it: a flat profile over charged lines carries reactive power
+    only, yet its flow must still count."""
+    from gym_anm_tpu.physics.transition import branch_flows, make_tables
+
+    tb = make_tables(load_network(anm6_network), delta_t=1.0, lamb=100)
+    n_br = tb.n_branch
+    tb = tb._replace(shunt_im=np.full(n_br, 0.01), shift_cos=np.ones(n_br),
+                     shift_sin=np.zeros(n_br))
+    if voltages == "flat":
+        v_re, v_im = np.ones(tb.n_bus), np.zeros(tb.n_bus)
+    else:
+        rng = np.random.default_rng(3)
+        v_re, v_im = rng.uniform(0.95, 1.05, tb.n_bus), rng.uniform(-0.05, 0.05, tb.n_bus)
+    *_, p_from, q_from, p_to, q_to, s_signed, s_max = [
+        np.asarray(x) for x in branch_flows(tb, jnp.asarray(v_re), jnp.asarray(v_im),
+                                            jnp.ones(n_br))]
+    expected = np.maximum(np.hypot(p_from, q_from), np.hypot(p_to, q_to))
+    np.testing.assert_allclose(s_max, expected, rtol=1e-12)
+    if voltages == "flat":
+        assert np.all(p_from == 0) and np.all(s_signed == 0)
+        np.testing.assert_allclose(s_max, 0.01, rtol=1e-9)
+    else:
+        np.testing.assert_allclose(np.abs(s_signed), s_max, rtol=1e-12)

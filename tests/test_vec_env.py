@@ -50,7 +50,7 @@ def test_vmap_batched_rollout_f64():
 
 def test_f32_nr_converges_on_ieee33():
     """float32 must reach the 1e-5 NR tolerance on the IEEE33 task — the
-    precondition for the TPU throughput path."""
+    precondition for the f32 throughput path."""
     env = VecEnv(make_ieee33_task(), dtype=jnp.float32)
     B, T = 64, 30
     keys = jax.random.split(jax.random.PRNGKey(0), B)
@@ -339,9 +339,9 @@ def test_cross_tier_trajectory_unequal_switching():
 
 
 def test_rbg_keys_supported():
-    """farm_keys(impl='rbg') — the TPU-fast RngBitGenerator key flavor —
+    """farm_keys(impl='rbg') — the RngBitGenerator key flavor —
     flows through reset, batched autoreset step, and scan rollouts with
-    healthy solves (docs/performance.md, next_vars RNG cost)."""
+    healthy solves."""
     from gym_anm_tpu.vec import farm_keys
 
     env = VecEnv(make_ieee33_multicap_task(), dtype=jnp.float32)
@@ -365,9 +365,8 @@ def test_rbg_keys_supported():
 )
 def test_no_batched_f64_in_f32_step(factory):
     """Under the package's global x64, an unannotated jax.random draw (or
-    table gather) silently computes in float64 — emulated and sequential
-    on TPU.  The multicap load-noise draw cost 0.46 ms/step at B=8192
-    this way (docs/performance.md).  Guard: the lowered f32 autoreset
+    table gather) silently computes in float64 on the f32 hot path (the
+    multicap load-noise draw once did).  Guard: the lowered f32 autoreset
     step contains no batch-dimensioned f64 tensor (per-lane f64 scalars
     like the hour-of-day carry are fine; so are constant-folded tables)."""
     import re
@@ -396,3 +395,35 @@ def test_no_batched_f64_in_expert_zoo():
         txt = jax.jit(jax.vmap(ctl.act)).lower(keys, state, obs, carry).as_text()
         leaks = sorted(set(re.findall(r"tensor<4x\d+[x\d]*xf64>", txt)))
         assert not leaks, (ctl.name, leaks)
+
+
+def test_vec_tier_runs_without_gymnasium():
+    """Gymnasium is optional outside the compat tier: with it blocked, the
+    vec tier imports and builds the four bench tasks, and the compat tier
+    says what it needs."""
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import sys; sys.modules['gymnasium'] = None\n"
+        "import jax.numpy as jnp\n"
+        "from gym_anm_tpu.vec import (VecEnv, make_anm6easy_task, make_ieee33_multicap_task,\n"
+        "                             make_ieee33_task, make_vec_mpc)\n"
+        "import bench, gym_anm_tpu.offline_vec, gym_anm_tpu.parallel\n"
+        "for f in (make_ieee33_task, make_ieee33_multicap_task, make_anm6easy_task):\n"
+        "    VecEnv(f(), dtype=jnp.float32)\n"
+        "try:\n"
+        "    import gym_anm_tpu.compat\n"
+        "except ImportError as e:\n"
+        "    print('COMPAT', e)\n"
+        "print('VEC_OK')\n"
+    )
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=root)
+    r = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "VEC_OK" in r.stdout
+    assert "COMPAT" in r.stdout and "gymnasium" in r.stdout
+

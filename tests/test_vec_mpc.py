@@ -172,8 +172,8 @@ def test_vec_mpc_controller_rollout():
 
 
 def test_act_program_is_f64_free():
-    """The controller's compiled act program must not drag emulated-f64
-    chains onto the TPU (tests/test_no_f64_hotpath.py rationale)."""
+    """The controller's compiled act program must not drag f64 chains
+    onto the f32 hot path (tests/test_no_f64_hotpath.py rationale)."""
     env = VecEnv(make_anm6easy_task(), dtype=jnp.float32)
     ctrl = make_vec_mpc(env, gamma=0.995, planning_steps=1)
     state, _ = jax.jit(jax.vmap(env.reset))(
@@ -613,7 +613,7 @@ def test_shift_warm_is_exact_stage_shift(host_problem):
 
 def test_rti_budget_default_quality_floor():
     """The default real-time-iteration budget (max_iter=48) must stay at
-    solve-to-convergence closed-loop quality.  The round-5 TPU sweep
+    solve-to-convergence closed-loop quality.  The budget sweep
     (scripts/exp_rti_budget.py) measured full-day reward FLAT from
     budget 16 up with a CLIFF at 8 (-0.648 vs -0.593); this pins the
     shipped default well clear of that cliff on a full profile day so a
